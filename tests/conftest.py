@@ -1,8 +1,8 @@
 """Test configuration: CPU backend with 8 virtual devices.
 
-Multi-chip sharding is validated on a virtual CPU mesh
-(xla_force_host_platform_device_count), per the driver contract; real-TPU
-execution is exercised by bench.py and the driver's compile checks.
+Multi-device sharding is validated on a virtual CPU mesh
+(xla_force_host_platform_device_count); the GPU runs are `chip_smoke.py`
+(one card) and `chip_smoke.py --devices 4`.
 """
 
 import os

@@ -67,7 +67,7 @@ def test_quadratic_term():
 
 
 def test_mixed_precision_f32_factor():
-    """f32 (MXU-speed) factor + f64 refinement recovers f64-grade accuracy
+    """f32 factor + f64 refinement recovers f64-grade accuracy
     on a Jacobi-scaled moderately conditioned system."""
     rng = np.random.default_rng(3)
     m, n = 40, 24
@@ -146,3 +146,78 @@ def test_ub_tail_extreme_scaling():
     r2 = rx - Afty - D * dx
     scale = max(np.max(np.abs(ry)), np.max(np.abs(rx))) + 1
     assert np.max(np.abs(np.concatenate([r1, r2]))) < 1e-6 * scale
+
+
+def _assembled(fac):
+    """M recovered from the Jacobi-scaled factor: S M S = L L'."""
+    L = np.asarray(fac.L, np.float64)
+    s = np.asarray(fac.s, np.float64)
+    return (L @ L.T) / np.outer(s, s)
+
+
+@pytest.mark.parametrize("factor_dtype", [None, jnp.float32])
+@pytest.mark.parametrize("form", ["primal", "dual", "ub_tail"])
+def test_kkt_factor_assembles_normal_matrix(form, factor_dtype):
+    """kkt_factor forms the primal (E + A D^-1 A'), dual (D + A' E^-1 A)
+    or Schur-eliminated UbTail normal matrix, in f64 or in f32 for an f32
+    factor."""
+    from vanderbei_tpu.ops.kkt import UbTail
+    rng = np.random.default_rng(10)
+    m, n = (14, 8) if form == "dual" else (8, 14)
+    A = rng.normal(size=(m, n))
+    D = rng.uniform(0.5, 2.0, n)
+    ub = None
+    if form == "ub_tail":
+        idx2 = np.array([2, 5, 11, 0], dtype=np.int32)
+        w2 = np.array([1.0, 0.5, 2.0, 0.0])          # last row: padding
+        E = rng.uniform(0.5, 2.0, m + len(idx2))
+        Dt = 1.0 / D
+        Dt[idx2[:3]] = 1.0 / (D[idx2[:3]] + w2[:3] ** 2 / E[m:m + 3])
+        ref = np.diag(E[:m]) + (A * Dt) @ A.T
+        ub = UbTail(jnp.asarray(idx2), jnp.asarray(w2))
+    else:
+        E = rng.uniform(0.5, 2.0, m)
+        ref = (np.diag(E) + (A / D) @ A.T if form == "primal"
+               else np.diag(D) + (A.T / E) @ A)
+    fac = kkt_factor(jnp.asarray(A), jnp.asarray(E), jnp.asarray(D), 1e-14,
+                     factor_dtype=factor_dtype, ub=ub)
+    assert fac.L.dtype == (jnp.float32 if factor_dtype else jnp.float64)
+    assert fac.L.shape == ref.shape
+    tol = 1e-5 if factor_dtype else 1e-12
+    np.testing.assert_allclose(_assembled(fac), ref,
+                               atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_scaled_syrk(dtype):
+    from vanderbei_tpu.ops.kkt import scaled_syrk
+    rng = np.random.default_rng(11)
+    A = rng.normal(size=(12, 30))
+    s = rng.uniform(0.1, 10.0, 30)
+    e = rng.uniform(0.5, 1.0, 12)
+    M = scaled_syrk(jnp.asarray(A), jnp.asarray(s), jnp.asarray(e), dtype)
+    assert M.dtype == dtype
+    ref = (A * s) @ A.T + np.diag(e)
+    tol = 1e-6 if dtype == jnp.float32 else 1e-13
+    np.testing.assert_allclose(np.asarray(M, np.float64), ref,
+                               atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("factor_dtype", ["f64", "f32"])
+def test_kkt_solver_end_to_end(factor_dtype):
+    """A whole HSD solve through the plain Cholesky path, with an f64 and
+    with an f32 factor (f64 data and refinement), against HiGHS."""
+    from vanderbei_tpu.core.canonicalize import canonicalize
+    from vanderbei_tpu.core.status import Status
+    from vanderbei_tpu.io.synthetic import highs_reference, random_lp
+    from vanderbei_tpu.models import hsd
+
+    lp = random_lp(20, 40, density=0.2, ub_frac=0.25, seed=21)
+    canon = canonicalize(lp, pad_to=1)
+    st, x, *_ = hsd.solve_canon(
+        jnp.asarray(canon.A), jnp.asarray(canon.b), jnp.asarray(canon.c),
+        canon.f, factor_dtype=factor_dtype)
+    assert int(st) == int(Status.OPTIMAL)
+    obj = -(float(canon.c[:canon.n] @ np.asarray(x)[:canon.n]) + canon.f)
+    _, ref = highs_reference(lp)
+    assert abs(obj - ref) / max(1.0, abs(ref)) < 1e-6

@@ -1,4 +1,5 @@
-"""Batching + mesh tests on the 8-virtual-device CPU backend."""
+"""Batching + mesh tests on the 8-virtual-device CPU backend, on seeded
+generated LPs checked against scipy's HiGHS."""
 
 import jax
 import jax.numpy as jnp
@@ -6,14 +7,24 @@ import numpy as np
 import pytest
 
 from vanderbei_tpu.core.status import Status
-from vanderbei_tpu.io import netlib
+from vanderbei_tpu.io.synthetic import highs_reference, random_lp
 from vanderbei_tpu.parallel.batch import (
     group_by_class, stack_class, solve_batch_hsd, shard_batch)
 from vanderbei_tpu.parallel.mesh import make_mesh
-import os
 
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(netlib.netlib_dir()), reason="netlib corpus absent")
+
+def _lps(seeds, m=20, n=40, ub_frac=0.0):
+    return [random_lp(m, n, density=0.2, ub_frac=ub_frac, seed=s)
+            for s in seeds]
+
+
+def _highs(lps):
+    out = []
+    for lp in lps:
+        st, obj = highs_reference(lp)
+        assert st == int(Status.OPTIMAL)
+        out.append(obj)
+    return out
 
 
 def test_devices_virtualized():
@@ -21,7 +32,7 @@ def test_devices_virtualized():
 
 
 def test_group_and_stack():
-    lps = [netlib.load(n) for n in ("AFIRO", "SC50A", "SC50B")]
+    lps = _lps([0, 1, 2])
     classes, aborted = group_by_class(lps, granularity=128)
     assert not aborted
     # all three fit one (128, 128) class
@@ -35,8 +46,8 @@ def test_group_and_stack():
 
 
 def test_batched_hsd_matches_golden():
-    names = ["AFIRO", "SC50A", "SC50B"]
-    lps = [netlib.load(n) for n in names]
+    lps = _lps([3, 4, 5])
+    golden = _highs(lps)
     classes, _ = group_by_class(lps, granularity=128)
     entries = classes[(128, 128)]
     A, b, c = stack_class(entries, 128, 128)
@@ -47,8 +58,8 @@ def test_batched_hsd_matches_golden():
     for k, (idx, canon) in enumerate(entries):
         obj_canon = float(np.asarray(c[k]) @ np.asarray(x[k])) + canon.f
         sign = 1.0 if canon.maximize else -1.0
-        golden = netlib.golden_objective(names[idx])
-        assert abs(sign * obj_canon - golden) / max(1, abs(golden)) < 1e-6
+        g = golden[idx]
+        assert abs(sign * obj_canon - g) / max(1, abs(g)) < 1e-6
 
 
 def test_sharded_batch_runs():
@@ -99,8 +110,8 @@ def test_sharded_kkt_solve_matches_dense():
 
 def test_batched_pd_matches_golden():
     from vanderbei_tpu.parallel.batch import solve_batch_pd
-    names = ["AFIRO", "SC50A", "SC50B"]
-    lps = [netlib.load(n) for n in names]
+    lps = _lps([6, 7, 8])
+    golden = _highs(lps)
     classes, _ = group_by_class(lps, granularity=128)
     entries = classes[(128, 128)]
     A, b, c = stack_class(entries, 128, 128)
@@ -111,19 +122,19 @@ def test_batched_pd_matches_golden():
     for k, (idx, canon) in enumerate(entries):
         obj_canon = float(np.asarray(c[k]) @ np.asarray(x[k])) + canon.f
         sign = 1.0 if canon.maximize else -1.0
-        golden = netlib.golden_objective(names[idx])
-        assert abs(sign * obj_canon - golden) / max(1, abs(golden)) < 1e-6
+        g = golden[idx]
+        assert abs(sign * obj_canon - g) / max(1, abs(g)) < 1e-6
 
 
 def test_full_mesh_solve_equals_single_device():
-    """A complete batched netlib class solved to convergence under the
+    """A complete batched class solved to convergence under the
     ("batch", "model") mesh must equal the single-device solve — same
     statuses, same iteration counts, objectives equal to 1e-10.
 
     (GSPMD may reassociate the psum reductions, so exact bitwise equality
     is not guaranteed; 1e-10 on a converged optimum is.)"""
-    names = ["AFIRO", "SC50A", "SC50B", "BLEND"]
-    lps = [netlib.load(n) for n in names]
+    lps = _lps([9, 10, 11, 12])
+    golden = _highs(lps)
     classes, _ = group_by_class(lps, granularity=128)
     (key, entries), = classes.items()
     A, b, c = stack_class(entries, *key)
@@ -141,19 +152,18 @@ def test_full_mesh_solve_equals_single_device():
     for k, (idx, canon) in enumerate(entries):
         obj_s = canon.obj_scale * float(c[k] @ x_s[k]) + canon.f
         obj_m = canon.obj_scale * float(c[k] @ x_m[k]) + canon.f
-        assert abs(obj_m - obj_s) <= 1e-10 * max(1.0, abs(obj_s)), names[idx]
-        golden = netlib.golden_objective(names[idx])
+        assert abs(obj_m - obj_s) <= 1e-10 * max(1.0, abs(obj_s)), idx
         sign = 1.0 if canon.maximize else -1.0
-        assert abs(sign * obj_m - golden) / max(1, abs(golden)) < 1e-6
+        g = golden[idx]
+        assert abs(sign * obj_m - g) / max(1, abs(g)) < 1e-6
 
 
 def test_batched_hsd_structured_ub_tail():
     """Problems with upper-bound tails batched through the structured
-    (UbTail) class path must match their golden optima and the dense
-    batched solve — VERDICT r2 item 7 (UbTail plumbed through batching)."""
+    (UbTail) class path must match their HiGHS optima."""
     from vanderbei_tpu.parallel.batch import stack_class_structured
-    names = ["KB2", "RECIPE", "BOEING2"]     # all carry ub-row tails
-    lps = [netlib.load(n) for n in names]
+    lps = _lps([13, 14, 15], ub_frac=0.3)     # all carry ub-row tails
+    golden = _highs(lps)
     classes, aborted = group_by_class(lps, granularity=128,
                                       use_ub_structure=True)
     assert not aborted
@@ -172,21 +182,22 @@ def test_batched_hsd_structured_ub_tail():
         for j, (idx, canon) in enumerate(entries):
             obj_canon = canon.obj_scale * float(np.asarray(c[j]) @ np.asarray(x[j])) + canon.f
             sign = 1.0 if canon.maximize else -1.0
-            solved[names[idx]] = sign * obj_canon
-    for name in solved:
-        golden = netlib.golden_objective(name)
-        assert abs(solved[name] - golden) / max(1, abs(golden)) < 1e-6, (
-            name, solved[name], golden)
+            solved[idx] = sign * obj_canon
+    assert sorted(solved) == [0, 1, 2]
+    for idx, obj in solved.items():
+        g = golden[idx]
+        assert abs(obj - g) / max(1, abs(g)) < 1e-6, (idx, obj, g)
 
 
 def test_tp_product_path_equals_single_device():
     """solve(lp, mesh=...) — the tensor-parallel PRODUCT path: one wide LP
     with A column-sharded 8 ways through the same registry/HSD code, equal
-    to the single-device solve (VERDICT r2 item 6)."""
+    to the single-device solve."""
     import vanderbei_tpu as vt
     from vanderbei_tpu.core.config import SolverConfig
 
-    lp = netlib.load("SCSD1")          # 77 x 760: wide, the TP-profitable shape
+    # wide, the TP-profitable shape; upper bounds take the UbTail path
+    lp = random_lp(30, 300, density=0.2, ub_frac=0.25, seed=16)
     cfg = SolverConfig()
     ref = vt.solve(lp, method="hsd", config=cfg)
     mesh = make_mesh(8, model_parallel=8)
@@ -195,16 +206,16 @@ def test_tp_product_path_equals_single_device():
     assert abs(tp.primal_obj - ref.primal_obj) <= 1e-10 * max(
         1.0, abs(ref.primal_obj))
     # GSPMD reassociates the psum reductions, so the iterate paths differ
-    # in the last bits; on SCSD1's (mildly degenerate) optimal face the
-    # solutions agree to solver tolerance, not machine epsilon
+    # in the last bits; the solutions agree to solver tolerance, not
+    # machine epsilon
     np.testing.assert_allclose(tp.x, ref.x, rtol=1e-5, atol=1e-6)
-    golden = netlib.golden_objective("SCSD1")
+    _, golden = highs_reference(lp)
     assert abs(tp.primal_obj - golden) / max(1, abs(golden)) < 1e-6
 
 
 def test_tp_mesh_rejects_simplex():
     import vanderbei_tpu as vt
-    lp = netlib.load("AFIRO")
+    lp = _lps([17])[0]
     mesh = make_mesh(8, model_parallel=8)
     with pytest.raises(ValueError, match="hsd family"):
         vt.solve(lp, method="pd", mesh=mesh)

@@ -9,7 +9,7 @@ expected-failures contract (SURVEY.md section 4).
 - The reference ipo hits its iteration limit (MAX_ITER=200, hsd.c:25) on 5
   problems — none of those terminate "dual unbounded", i.e. they
   canonicalize fine; we assert they pass canonicalization (their full
-  solves are exercised by the corpus sweep, evaluate/r2).
+  solves are exercised by the corpus sweep, vanderbei_tpu.evaluate).
 """
 
 import os
@@ -21,8 +21,13 @@ from vanderbei_tpu.core.canonicalize import canonicalize
 from vanderbei_tpu.core.status import Status
 from vanderbei_tpu.io import netlib
 
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(netlib.netlib_dir()), reason="netlib corpus absent")
+
+@pytest.fixture(autouse=True)
+def corpus():
+    # every test here reads netlib files
+    if not os.path.exists(netlib.netlib_dir()):
+        pytest.skip("netlib corpus absent")
+
 
 # /root/reference/evaluate/v1-cf4d5ba/netlib/ipo/README.md "dual unbounded"
 DUAL_UNBOUNDED_11 = [

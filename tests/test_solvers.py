@@ -1,5 +1,7 @@
-"""End-to-end solver tests on small netlib instances against the published
-golden optima (the reference's de-facto oracle, SURVEY.md section 4)."""
+"""End-to-end solver tests: seeded generated LPs against scipy's HiGHS, and
+small netlib instances against the published golden optima (the
+reference's de-facto oracle, SURVEY.md section 4) where the corpus is
+present."""
 
 import os
 
@@ -8,18 +10,38 @@ import pytest
 
 import vanderbei_tpu as vt
 from vanderbei_tpu.io import netlib
+from vanderbei_tpu.io.synthetic import highs_reference, random_lp
 from vanderbei_tpu.core.status import Status
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(netlib.netlib_dir()), reason="netlib corpus absent")
 
 SMALL = ["AFIRO", "SC50A", "SC50B", "ADLITTLE", "BLEND", "SHARE2B", "SC105"]
 METHODS = ["intpt", "hsd", "hsdls", "pd", "twophase"]
 
 
+@pytest.fixture
+def corpus():
+    if not os.path.exists(netlib.netlib_dir()):
+        pytest.skip("netlib corpus absent")
+
+
+def gen_lp(seed, m=16, n=32):
+    return random_lp(m, n, density=0.25, ub_frac=0.25, seed=seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("method", METHODS)
+def test_generated_lp(seed, method):
+    lp = gen_lp(seed)
+    sol = vt.solve(lp, method=method)
+    h_status, h_obj = highs_reference(lp)
+    assert h_status == sol.status == int(Status.OPTIMAL), (
+        f"seed {seed}/{method}: status {sol.status}")
+    rel = abs(sol.primal_obj - h_obj) / max(1.0, abs(h_obj))
+    assert rel < 1e-6, f"seed {seed}/{method}: {sol.primal_obj} vs {h_obj}"
+
+
 @pytest.mark.parametrize("name", SMALL)
 @pytest.mark.parametrize("method", METHODS)
-def test_small_netlib(name, method):
+def test_small_netlib(name, method, corpus):
     lp = netlib.load(name)
     sol = vt.solve(lp, method=method)
     golden = netlib.golden_objective(name)
@@ -32,7 +54,7 @@ def test_small_netlib(name, method):
 @pytest.mark.parametrize("method", ["hsd", "pd", "twophase"])
 def test_padding_invariance(method):
     """Padding to tile multiples must not change the answer."""
-    lp = netlib.load("AFIRO")
+    lp = gen_lp(3)
     sol1 = vt.solve(lp, method=method, pad_to=1)
     sol2 = vt.solve(lp, method=method, pad_to=64)
     assert sol1.status == sol2.status == int(Status.OPTIMAL)
@@ -93,7 +115,7 @@ def test_unbounded_detection():
 
 
 def test_solution_vectors_feasible():
-    lp = netlib.load("AFIRO")
+    lp = gen_lp(4)
     sol = vt.solve(lp, method="hsd")
     A = lp.dense_A()
     act = A @ sol.x
@@ -106,7 +128,7 @@ def test_solution_vectors_feasible():
 
 
 def test_write_sol(tmp_path):
-    lp = netlib.load("AFIRO")
+    lp = gen_lp(5)
     sol = vt.solve(lp, method="hsd")
     out = tmp_path / "afiro.out"
     vt.write_sol(lp, sol, str(out))
@@ -119,7 +141,7 @@ def test_write_sol(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["CAPRI", "VTP.BASE"])
-def test_free_variable_split(name):
+def test_free_variable_split(name, corpus):
     """Instances the reference rejects with "dual unbounded" (free
     variables, solve.c:79-87) solve to the golden optimum with
     free_vars="split"."""
@@ -140,7 +162,7 @@ def test_structured_metrics_table():
     import jax.numpy as jnp
     from vanderbei_tpu.core.canonicalize import canonicalize
     from vanderbei_tpu.models import hsd
-    lp = netlib.load("AFIRO")
+    lp = gen_lp(6)
     canon = canonicalize(lp, pad_to=1)
     A = jnp.asarray(canon.A)
     b = jnp.asarray(canon.b)
@@ -163,13 +185,13 @@ def test_structured_metrics_table():
 
 
 def test_padding_invariance_stress():
-    """Size-class auto-padding (default) adds ~200 benign rows/cols to
-    SHARE1B; the answer must match the exact-dims solve to optimality
+    """Size-class auto-padding (default) adds ~200 benign rows/cols to a
+    40 x 50 LP; the answer must match the exact-dims solve to optimality
     tolerance on a problem whose padded fraction is large."""
-    lp = netlib.load("SHARE1B")     # 117x225 canonical -> (256, 256) class
+    lp = random_lp(40, 50, density=0.1, ub_frac=0.0, seed=7)
     exact = vt.solve(lp, method="hsd", pad_to=1)
     padded = vt.solve(lp, method="hsd")            # pad_to="auto"
-    golden = netlib.golden_objective("SHARE1B")
+    _, golden = highs_reference(lp)
     assert exact.status == padded.status == int(Status.OPTIMAL)
     assert abs(padded.primal_obj - exact.primal_obj) <= 1e-6 * abs(golden)
     assert abs(padded.primal_obj - golden) / abs(golden) < 1e-6
@@ -180,7 +202,7 @@ def test_padding_invariance_stress():
 
 
 @pytest.mark.parametrize("name", ["BANDM", "STAIR"])
-def test_hsdls_mid_scale(name):
+def test_hsdls_mid_scale(name, corpus):
     """The long-step linesearch variant on problems where it actually has
     to work (hundreds of rows, the STAIR staircase is a reference
     'dual unbounded' reject solved via free_vars='split')."""
@@ -223,7 +245,7 @@ def test_free_var_with_finite_ub_falls_back_to_dense():
 
 @pytest.mark.skipif(bool(os.environ.get("SKIP_SLOW")),
                     reason="SKIP_SLOW set")
-def test_twophase_bandm_mid_scale():
+def test_twophase_bandm_mid_scale(corpus):
     """Backs the README claim: two-phase simplex validated at mid scale —
     BANDM (305 rows original, 610 canonical), ~1.4k pivots through the
     dense-B^-1 product-form/refresh machinery."""
@@ -235,7 +257,7 @@ def test_twophase_bandm_mid_scale():
     assert 600 < sol.iterations < 5000
 
 
-def test_forplan_quality_gate_and_fallback():
+def test_forplan_quality_gate_and_fallback(corpus):
     """FORPLAN's HSD trajectory collapses phi (mu < 1e-12 while the
     de-homogenized point still has a ~5e-4 relative duality gap — the
     reference hits its iteration limit here).  The quality gate must

@@ -16,15 +16,18 @@ import jax.numpy as jnp
 from vanderbei_tpu.core.canonicalize import canonicalize
 from vanderbei_tpu.core.config import SolverConfig
 from vanderbei_tpu.core.status import Status
-from vanderbei_tpu.io import netlib
+from vanderbei_tpu.io.synthetic import highs_reference, random_lp
 from vanderbei_tpu.models import hsd, intpt
 from vanderbei_tpu.utils import checkpoint
 import vanderbei_tpu as vt
 
 
-def _canon_arrays(name="ADLITTLE"):
-    lp = netlib.load(name)
-    canon = canonicalize(lp, pad_to=1)
+def _lp(seed=0, m=24, n=48):
+    return random_lp(m, n, density=0.2, ub_frac=0.25, seed=seed)
+
+
+def _canon_arrays(seed=0):
+    canon = canonicalize(_lp(seed), pad_to=1)
     return (jnp.asarray(canon.A), jnp.asarray(canon.b),
             jnp.asarray(canon.c), canon.f)
 
@@ -47,7 +50,7 @@ def test_hsd_resume_equals_uninterrupted(tmp_path):
 
 
 def test_intpt_resume_equals_uninterrupted():
-    A, b, c, f = _canon_arrays("AFIRO")
+    A, b, c, f = _canon_arrays(1)
     full = intpt.solve_canon(A, b, c, f)
     paused = intpt.solve_canon(A, b, c, f, pause_gap=1.0)[-1]
     assert int(paused.status) == int(Status.RUNNING)
@@ -60,19 +63,19 @@ def test_intpt_resume_equals_uninterrupted():
 
 def test_mixed_precision_end_to_end():
     """The two-stage f32 sprint -> f64 polish reaches the same status and
-    golden objective as f64-direct."""
-    for name in ("ADLITTLE", "SC105"):
-        lp = netlib.load(name)
+    HiGHS objective as f64-direct."""
+    for seed in (2, 3):
+        lp = _lp(seed)
         mixed = vt.solve(lp, config=SolverConfig(precision="mixed"))
         direct = vt.solve(lp, config=SolverConfig(precision="f64"))
-        golden = netlib.golden_objective(name)
+        _, golden = highs_reference(lp)
         assert mixed.status == direct.status == int(Status.OPTIMAL)
         assert abs(mixed.primal_obj - golden) / max(1, abs(golden)) < 1e-6
         assert abs(direct.primal_obj - golden) / max(1, abs(golden)) < 1e-6
 
 
 def test_stage_cast_roundtrip():
-    A, b, c, f = _canon_arrays("AFIRO")
+    A, b, c, f = _canon_arrays(4)
     st = hsd.solve_canon(A, b, c, f, pause_mu=1e-2)[-1]
     st32 = hsd.cast_state(st, jnp.float32)
     st64 = hsd.cast_state(st32, jnp.float64)
@@ -87,7 +90,7 @@ def test_time_limit_stops_early():
     exhausted, reporting honest partial progress (status iteration limit is
     NOT claimed; the run simply stops with status RUNNING -> mapped to
     iteration-limit only when the budget was truly iterations)."""
-    lp = netlib.load("ADLITTLE")
+    lp = _lp(5)
     cfg = SolverConfig(time_limit=0.0)       # instant deadline
     sol = vt.solve(lp, config=cfg)
     # with a zero budget only the first chunk runs; the solve must return

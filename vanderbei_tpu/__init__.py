@@ -1,10 +1,10 @@
-"""vanderbei_tpu — a TPU-native linear/quadratic programming framework.
+"""vanderbei_tpu — a JAX linear/quadratic programming framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the C companion
+A from-scratch JAX/XLA re-design of the capabilities of the C companion
 code to Vanderbei's *Linear Programming: Foundations and Extensions*
 (reference: romz-pl/linear-programming-Vanderbei).  Not a port: solvers are
-expressed as jit-compiled ``lax.while_loop`` pipelines over dense, padded,
-MXU-friendly arrays, batched with ``vmap`` and sharded over device meshes with
+expressed as jit-compiled ``lax.while_loop`` pipelines over dense, padded
+arrays, batched with ``vmap`` and sharded over device meshes with
 ``jax.sharding`` — replacing the reference's single-threaded pointer-chasing
 sparse kernels.
 
@@ -19,12 +19,12 @@ import jax as _jax
 
 # The reference framework is a double-precision numerical code (with an
 # optional double-double mode).  f64 is required to hit its tolerance ladder
-# (mu < 1e-12 in hsd.c:24); TPUs execute f64 via software emulation which the
-# mixed-precision kernels in ops/ progressively avoid.
+# (mu < 1e-12 in hsd.c:24).
 _jax.config.update("jax_enable_x64", True)
 
-# TPU f32 matmuls default to bf16-input passes; the mixed-precision KKT
-# factor needs true f32 accumulation or the refinement loses the problem.
+# On the GPU an f32 matmul at default precision runs in TF32 (about three
+# decimal digits); the mixed-precision KKT factor needs true f32 products or
+# the refinement loses the problem.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .core.lp import LP, Solution  # noqa: E402

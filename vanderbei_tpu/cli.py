@@ -52,7 +52,7 @@ def main(argv=None) -> int:
 
     banner = (
         "\t+-------------------------------------------------+\n"
-        "\t   vanderbei_tpu : TPU-native LP framework          \n"
+        "\t   vanderbei_tpu : JAX LP framework                 \n"
         "\t+-------------------------------------------------+")
     if args.verbose:
         print(banner)

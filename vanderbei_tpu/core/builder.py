@@ -1,7 +1,7 @@
 """Programmatic model builder.
 
 The reference's second front end is the vendored AMPL solver library
-(src/amplsolver + common/amplio.c) reading .nl files.  The TPU framework
+(src/amplsolver + common/amplio.c) reading .nl files.  This framework
 replaces that surface with a direct Python builder (SURVEY.md section 7:
 "AMPL front end -> dropped; MPS + a Python-dict model builder API
 instead"): named rows/columns, ranges, bounds, and quadratic terms, with

@@ -22,7 +22,7 @@ original rows, then the appended range rows (in original row order), then
 the upper-bound rows (in column order).  This makes y/w/b indexable the same
 way writesol indexes them.
 
-The dense matrix is materialized padded to TPU-tile multiples; `rows`/`cols`
+The dense matrix is materialized padded to the requested multiples; `m`/`n`
 carry the true sizes and the padding is benign (zero rows with b=1).
 """
 
@@ -161,8 +161,8 @@ def canonicalize(lp: LP, pad_to: int = 1, dtype=np.float64,
                  scale: str = "none") -> CanonLP:
     """Build the dense canonical form (reference solvelp solve.c:28-205).
 
-    pad_to: round padded dims up to this multiple (use 8/128 for TPU tiles,
-    or a size-class bound for batching).  pad_rows_to / pad_cols_to instead
+    pad_to: round padded dims up to this multiple (or a size-class bound
+    for batching).  pad_rows_to / pad_cols_to instead
     pad to an absolute target dim (size-class padding; must be >= the
     canonical dims).
 

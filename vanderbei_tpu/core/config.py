@@ -50,17 +50,19 @@ class SolverConfig:
     max_refine: int = 8
 
     # Precision ladder.  The reference is an f64 CPU code with an optional
-    # double-double mode; TPUs run f32 at MXU speed and f64 by emulation.
+    # double-double mode.  The modes and the size gates below are policies
+    # carried over from the first target hardware; none of them has been
+    # measured against f64-direct on the GPU yet.
     #   "auto"   (default): "mixed" when the factored normal-matrix dim is
-    #            >= mixed_min_dim (where the f32 sprint pays), else "f64"
-    #            (small problems are launch-bound; f64 direct keeps
-    #            reference-parity iteration paths).
+    #            >= mixed_min_dim, else "f64" (small problems are
+    #            launch-bound; f64 direct keeps reference-parity iteration
+    #            paths).
     #   "mixed": stage 1 runs the WHOLE solve in f32 until mu < stage1_mu,
     #            then stage 2 resumes the state in f64 to the reference
-    #            tolerance (hsd.c:24 mu < 1e-12).  Same statuses/objectives,
-    #            MXU-speed bulk iterations; if the warm-started polish hits
-    #            the iteration limit, one clean f64 retry runs (the f32
-    #            path can wander on degenerate problems).
+    #            tolerance (hsd.c:24 mu < 1e-12).  Same statuses/objectives;
+    #            if the warm-started polish hits the iteration limit, one
+    #            clean f64 retry runs (the f32 path can wander on degenerate
+    #            problems).
     #   "f32factor": f64 data, f32 Cholesky factor + f64 refinement.
     #   "f64":   single-stage f64 (closest to the reference's arithmetic).
     #   "dd":    QuadPrec-equivalent (reference -DQuadPrec, Quad.h:43-44):
@@ -70,32 +72,18 @@ class SolverConfig:
     precision: str = "auto"
     stage1_mu: float = 1.0e-4       # mixed-mode stage boundary (mu)
     mixed_min_dim: int = 1024       # "auto": mixed only at/above this dim
-    # beyond this factored dim the f64-polish stage keeps an f32 FACTOR
-    # (f64 data + refinement): an f64 factor of a 14.8k KEN-11 head
-    # overflows the 16G HBM by ~45M at compile time, and at that scale
-    # the f64 blocked factor dominates runtime anyway
+    # size policy, not measured on the GPU: under "auto"/"mixed", beyond
+    # this factored dim, or when the head operand has at least
+    # xl_f32factor_elems entries, the f64 polish stage keeps an f32 factor
+    # (f64 data + refinement), halving the factor's memory and formation
+    # cost on the largest instances
     xl_f32factor_dim: int = 8192
-    # ...or when the head operand A1 itself is large: every f64 gemm
-    # against A1 materializes bf16 split-stack copies of it (the TPU f64
-    # emulation), so a 6144x13824 FIT2P head costs ~17 GB of HLO temps in
-    # full f64 — the f32 factor + f32 M formation removes the dominant
-    # (A1*D)@A1' f64 gemm entirely
     xl_f32factor_elems: int = 60_000_000
-    # XL solves chunk their while_loop launches tightly: one launch must
-    # stay under the remote worker's watchdog even when every iteration
-    # pays a Tikhonov escalation (registry._deadline_iter_budget;
-    # GREENBEA-class crash root cause).  Below this dim, chunks are
-    # 25-50 iterations — the sticky state-carried reg (kkt_factor reg0)
-    # bounds the per-iteration worst case that forced 5-iteration chunks
-    # at 2048 in r4
-    xl_chunk_dim: int = 6144
-    xl_chunk_iters: int = 5
-
     # quality-gate retries (registry.solve): on a SUBOPTIMAL verdict,
     # re-solve unscaled, then cross-check with intpt.  Disable for
     # throughput benchmarking — the primary path's honest status IS the
-    # measurement there, and a GREENBEA-class retry chain costs ~1000 s
-    # per rep
+    # measurement there, and a retry chain re-solves the problem up to
+    # twice
     quality_retries: bool = True
 
     # Schur-eliminate singleton upper-bound rows from the KKT factor
@@ -108,7 +96,7 @@ class SolverConfig:
     eps: float = 1.0e-8             # EPS / EPS1 pivot tolerance
     eps2: float = 1.0e-12           # EPS2 perturbation floor
     eps3: float = 1.0e-10           # EPS3 mu optimality cutoff
-    simplex_max_iter: int = 200_000  # chunked run cap (reference pd.c:42 1e6)
+    simplex_max_iter: int = 200_000  # pivot cap (reference pd.c:42 1e6)
     refresh_every: int = 64         # dense B^-1 refresh cadence (replaces
                                     # the eta-file/bump refactor heuristic,
                                     # lueta.c:104-131)

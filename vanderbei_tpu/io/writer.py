@@ -101,10 +101,9 @@ def write_lp(lp: LP, path: str) -> None:
             lab = lp.collab[j]
             if lp.c[j] != 0.0:
                 fp.write(f"    {lab:<8s}  {'obj':<8s}  {_fit12(lp.c[j])}\n")
-            for i in range(m):
-                if A[i, j] != 0.0:
-                    fp.write(f"    {lab:<8s}  {lp.rowlab[i]:<8s}  "
-                             f"{_fit12(A[i, j])}\n")
+            for i in np.nonzero(A[:, j])[0]:
+                fp.write(f"    {lab:<8s}  {lp.rowlab[i]:<8s}  "
+                         f"{_fit12(A[i, j])}\n")
         fp.write("RHS\n")
         for i in range(m):
             if lp.b[i] != 0.0:

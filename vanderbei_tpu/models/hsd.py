@@ -16,8 +16,8 @@ each iteration does ONE KKT factorization and TWO solves (the f- and
 g-systems, hsd.c:220-231) combined through the dphi formula (hsd.c:230-238).
 De-homogenization divides by phi at exit (hsd.c:277-284).
 
-Compile-economy design (this platform pays ~20s-minutes per fresh XLA
-program): every numeric knob (eps, step factor, beta, iteration limit,
+Compile-economy design (compiling this loop is the slowest part of a cold
+solve): every numeric knob (eps, step factor, beta, iteration limit,
 pause threshold) is a TRACED scalar, so one compiled executable per
 (padded shape, dtype, factor path) serves all configurations.  Solves can
 PAUSE at a traced mu threshold and RESUME from a carried state pytree —
@@ -186,12 +186,8 @@ def make_step(A, b, c, *,
         base_mvT = lambda M, v: matvec2(M.T, v)
         dot = dot2
     else:
-        # chunked products self-gate on operand size: at XL dims every
-        # f64 gemm against A materializes bf16 split-stack temps of the
-        # whole operand (the r4 HBM-OOM root cause); the scan bounds them
-        from ..ops.linalg import chunked_matvec, chunked_rmatvec
-        base_mv = chunked_matvec
-        base_mvT = chunked_rmatvec
+        base_mv = lambda M, v: M @ v
+        base_mvT = lambda M, v: M.T @ v
         dot = lambda a, b: a @ b
     if ub is not None:
         m1 = A.shape[0]
@@ -511,7 +507,7 @@ def _hsd_scan_metrics(A, b, c, f, init: HsdState, *,
                       ub: UbTail | None = None):
     """Observability variant: a fixed-length lax.scan that records one
     structured metrics row PER ITERATION on device and returns the whole
-    table to the host — the TPU-native replacement for the reference's
+    table to the host — the device-side replacement for the reference's
     per-iteration stdout trace (hsd.c:206-209), usable for regression
     dashboards without host callbacks.
 
@@ -618,7 +614,7 @@ def solve_canon(A, b, c, f, *,
     ub: implicit singleton tail rows (ops/kkt.UbTail) — A then holds only
     the general head rows; b spans head + tail.
 
-    factor_dtype: None = factor at A's dtype; jnp.float32/"f32" = MXU-speed
+    factor_dtype: None = factor at A's dtype; jnp.float32/"f32" = an
     f32 factor with data-precision refinement.  pause_mu > 0 pauses the
     solve once mu <= pause_mu (status stays RUNNING) — combine with
     `init=` to resume, possibly at a different precision (see

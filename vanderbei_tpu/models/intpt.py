@@ -4,7 +4,7 @@ Semantics of the reference's ipo METHOD=intpt solver (src/ipo/intpt.c:33-261):
 max c'x s.t. Ax + w = b, x,w,y,z > 0; fixed centering delta=0.02, step factor
 0.9, divergence-based infeasibility detection, EPS=1e-6, MAX_ITER=200.
 
-TPU-first: a single jitted `lax.while_loop` over a state pytree; the KKT
+Design: a single jitted `lax.while_loop` over a state pytree; the KKT
 solve is the dense normal-equations Cholesky in ops/kkt.py; ratio tests are
 masked reductions.  Works unchanged under vmap for instance batching and
 under shard_map for mesh execution.
@@ -115,12 +115,11 @@ def _intpt_loop(A, b, c, f, Q, init: IntptState, *,
                 & (gap > pause_gap))
 
     def body(s: IntptState):
-        from ..ops.linalg import chunked_matvec, chunked_rmatvec
         x, z, y, w = s.x, s.z, s.y, s.w
 
-        rho = b - chunked_matvec(A, x) - w   # primal infeasibility
+        rho = b - A @ x - w                  # primal infeasibility
         normr = jnp.sqrt(rho @ rho)
-        sigma = c - chunked_rmatvec(A, y) + z   # dual infeasibility
+        sigma = c - A.T @ y + z              # dual infeasibility
         if has_q:
             sigma = sigma - Qq @ x           # QP stationarity: c-Qx-A'y+z
         norms = jnp.sqrt(sigma @ sigma)

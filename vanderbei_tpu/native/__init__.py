@@ -1,6 +1,6 @@
 """Native (C++) runtime components, bound via ctypes.
 
-The reference's entire runtime is C; here the TPU compute path is JAX/XLA
+The reference's entire runtime is C; here the device compute path is JAX/XLA
 and the host runtime keeps native components where they are hot: the MPS
 data loader (this package) parses the corpus ~50x faster than the pure
 Python reader, with identical semantics (tested against it on the netlib

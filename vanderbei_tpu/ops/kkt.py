@@ -5,8 +5,9 @@ K = [[-E, A], [A', D]] with a sparse LDL' (src/ipo/ldlt.c:189-200, where the
 internal transposed LP makes its documented K equal this one in our row/col
 naming), then solves with iterative refinement (ldlt.c:327-416).
 
-TPU-first redesign: instead of pointer-chasing sparse LDL', we reduce K to
-SPD *normal equations* and Cholesky-factor them on the MXU:
+Dense redesign: instead of pointer-chasing sparse LDL', we reduce K to
+SPD *normal equations*, form them with one matrix product and
+Cholesky-factor them densely (cuSOLVER on the GPU):
 
     primal form (m <= n):  (E + A D^-1 A') dy = A D^-1 rx - ry
                            dx = D^-1 (rx - A' dy)
@@ -24,9 +25,9 @@ Numerical failure handling mirrors the reference's epsdiag escalation
 re-factored with a geometrically growing Tikhonov term.  The reference's
 additional LDL' luxury — exact factorization of the augmented quasi-definite
 K itself — is deliberately NOT compiled into the iteration program: a dense
-O((m+n)^3) fallback branch quintuples compile time on this platform and is
-never profitable on MXU hardware; the two-stage f32->f64 precision ladder
-(models/registry.py) plays its role instead.
+O((m+n)^3) fallback branch would multiply compile time and the factor's
+cost; the two-stage f32->f64 precision ladder (models/registry.py) plays
+its role instead.
 
 Q (quadratic objective) enters the dual form's n x n block exactly where the
 reference adds it to K's upper-left block (ldlt.c:253-257); with the primal
@@ -34,34 +35,18 @@ form Q must be None (the reference's primal ordering likewise only pays off
 for LPs).
 
 All tolerances are TRACED scalars, not Python constants: changing a
-tolerance must not trigger a recompile (fresh-XLA-program compiles cost
-minutes on this platform; see BENCH notes).  Only shapes, dtypes and code
-paths are static.
+tolerance must not trigger a recompile (compiling a solver loop is the
+slowest part of a cold solve).  Only shapes, dtypes and code paths are
+static.
 """
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import cho_solve
-
-from .blocked import BlockedFactor, blocked_cholesky, blocked_cho_solve
-
-
-def _use_blocked(dtype) -> bool:
-    """f64 Cholesky/trsm are scalar-emulated on TPU (~1000x slower than
-    f32); route f64 factors through the gemm-built blocked kernels there.
-    VANDERBEI_BLOCKED=1/0 forces the choice (tests exercise both)."""
-    if jnp.dtype(dtype) != jnp.float64:
-        return False
-    env = os.environ.get("VANDERBEI_BLOCKED", "auto")
-    if env in ("1", "0"):
-        return env == "1"
-    return jax.default_backend() == "tpu"
 
 
 def use_primal_form(m: int, n: int, has_q: bool) -> bool:
@@ -110,8 +95,16 @@ class KKTFactor(NamedTuple):
     L: jax.Array
     s: jax.Array
     g2: jax.Array = None
-    Winv: jax.Array = None   # diag-block inverses when L is a blocked Loff
     reg: jax.Array = None    # Tikhonov level the factor ended at (see below)
+
+
+def scaled_syrk(A, s, e, dtype):
+    """M = A diag(s) A' + diag(e), formed in dtype.
+
+    Under the package's "highest" matmul precision an f32 product keeps
+    full f32 accuracy (no TF32)."""
+    A, s, e = A.astype(dtype), s.astype(dtype), e.astype(dtype)
+    return (A * s[None, :]) @ A.T + jnp.diag(e)
 
 
 def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
@@ -122,7 +115,7 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
     diagonal (ldlt.c:235-236).  The matrix is symmetrically Jacobi-scaled
     to unit diagonal before factoring — the diagonal spread of IPM normal
     matrices is exactly what kills their conditioning, so this both
-    stabilizes f64 and makes an f32 (MXU-speed) factor usable, with the
+    stabilizes f64 and makes an f32 factor usable, with the
     refinement in kkt_solve recovering the remaining digits.
 
     Near convergence the scaled matrix can still go numerically indefinite;
@@ -155,51 +148,18 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         corr = d2 * Dinv[ub.idx2] / g2       # exactly 0 on padding rows
         Dt = Dinv.at[ub.idx2].add(-corr)     # = 1/(D_j + w^2/E2): harmonic
         Ec = E1
-    # the fused Pallas scaled-syrk covers every all-f32 or f32-factor case
-    f32_path = (factor_dtype is not None
-                and jnp.dtype(factor_dtype) == jnp.float32
-                ) or (A.dtype == jnp.float32 and factor_dtype is None)
-    from .linalg import CHUNKED_SYRK_MIN_ELEMS, chunked_scaled_syrk_f32
+    # an f32 factor discards M's extra f64 digits anyway, so M is formed
+    # in f32 too
+    mdtype = (jnp.float32 if factor_dtype is not None
+              and jnp.dtype(factor_dtype) == jnp.float32 else A.dtype)
     if ub is not None:
-        from .pallas_kernels import scaled_syrk
-        if f32_path and A.size >= CHUNKED_SYRK_MIN_ELEMS:
-            # giant head operands (PDS-06/KEN-11 class) stream the syrk
-            # in column panels: the full-size f32 cast + scaled copy
-            # otherwise OOM the chip as HLO temps
-            M = chunked_scaled_syrk_f32(A, Dt, Ec)
-        elif f32_path:
-            # form M wholly in f32 (MXU syrk): with an f32 factor the
-            # extra f64 digits of M are discarded anyway, and the f64
-            # syrk is the memory+time hog on XL problems (KEN-11)
-            M = scaled_syrk(A.astype(jnp.float32), Dt.astype(jnp.float32),
-                            Ec.astype(jnp.float32))
-        else:
-            M = (A * Dt[None, :]) @ A.T + jnp.diag(Ec)
-    elif f32_path:
-        # fused Pallas scaled-syrk: forms M directly in f32 on the MXU
-        # (falls back to jnp off-TPU / non-tile shapes)
-        from .pallas_kernels import scaled_syrk
-        if (use_primal_form(m, n, Q is not None)
-                and A.size >= CHUNKED_SYRK_MIN_ELEMS):
-            M = chunked_scaled_syrk_f32(A, 1.0 / Dc, Ec)
-        elif use_primal_form(m, n, Q is not None):
-            M = scaled_syrk(A.astype(jnp.float32),
-                            (1.0 / Dc).astype(jnp.float32),
-                            Ec.astype(jnp.float32))
-        else:
-            M = scaled_syrk(A.T.astype(jnp.float32),
-                            (1.0 / Ec).astype(jnp.float32),
-                            Dc.astype(jnp.float32))
-            if Q is not None:
-                M = M + Q.astype(M.dtype)
+        M = scaled_syrk(A, Dt, Ec, mdtype)
     elif use_primal_form(m, n, Q is not None):
-        M = (A / Dc[None, :]) @ A.T
-        M = M + jnp.diag(Ec)
+        M = scaled_syrk(A, 1.0 / Dc, Ec, mdtype)
     else:
-        M = (A.T / Ec[None, :]) @ A
-        M = M + jnp.diag(Dc)
+        M = scaled_syrk(A.T, 1.0 / Ec, Dc, mdtype)
         if Q is not None:
-            M = M + Q
+            M = M + Q.astype(mdtype)
 
     # the scaling vector stays at DATA precision: solves multiply through
     # it, and truncating it would cap refinement at factor accuracy
@@ -213,30 +173,6 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
     floor = 1.0e-14 if Ms.dtype == jnp.float64 else 1.0e-7
     r0 = (jnp.zeros((), Ms.dtype) if reg0 is None
           else jnp.asarray(reg0, Ms.dtype))
-
-    if _use_blocked(Ms.dtype):
-        # gemm-built blocked factor (see ops/blocked.py): same NaN
-        # propagation on indefinite input, same Tikhonov escalation
-        L0 = blocked_cholesky(Ms + r0 * eye)
-
-        def bad_b(f):
-            # NaN OR Inf, matching the dense path's `bad`: a tiny subnormal
-            # pivot can blow a later column to Inf without any NaN
-            return (jnp.any(jnp.isnan(f.Loff) | jnp.isinf(f.Loff))
-                    | jnp.any(jnp.isnan(f.Winv) | jnp.isinf(f.Winv)))
-
-        def cond_b(carry):
-            reg, f = carry
-            return bad_b(f) & (reg < 1.0e-2)
-
-        def body_b(carry):
-            reg, _ = carry
-            new_reg = jnp.where(reg == 0.0, floor,
-                                reg * 100.0).astype(Ms.dtype)
-            return new_reg, blocked_cholesky(Ms + new_reg * eye)
-
-        reg, fb = jax.lax.while_loop(cond_b, body_b, (r0, L0))
-        return KKTFactor(fb.Loff, s, g2, fb.Winv, reg)
 
     L0 = jnp.linalg.cholesky(Ms + r0 * eye)
 
@@ -253,20 +189,17 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         return new_reg, jnp.linalg.cholesky(Ms + new_reg * eye)
 
     reg, L = jax.lax.while_loop(cond, body, (r0, L0))
-    return KKTFactor(L, s, g2, None, reg)
+    return KKTFactor(L, s, g2, reg)
 
 
 def _scaled_cho_solve(fac: KKTFactor, t):
     """Solve M u = t through the scaled factor: u = S Ms^-1 S t.
 
     t: (m, k) — multiple right-hand sides share the one factor (and one
-    blocked triangular-solve chain), the reason the HSD step folds its f-
-    and g-systems into a single call."""
+    triangular-solve chain), the reason the HSD step folds its f- and
+    g-systems into a single call."""
     st = (fac.s[:, None] * t).astype(fac.L.dtype)
-    if fac.Winv is not None:
-        u = blocked_cho_solve(BlockedFactor(fac.L, fac.Winv), st)
-    else:
-        u = cho_solve((fac.L, True), st)
+    u = cho_solve((fac.L, True), st)
     return fac.s[:, None] * u.astype(fac.s.dtype)
 
 
@@ -275,7 +208,6 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
 
     ry: (m, k), rx: (n, k) column-stacked right-hand sides."""
     m, n = A.shape
-    from .linalg import chunked_matvec, chunked_rmatvec
     if ub is not None:
         # Schur path: solve the m1 head, back out the diagonal tail
         m1 = m
@@ -286,20 +218,20 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
         t2 = w2 * rxD[ub.idx2] - ry[m1:]
         # t~1 = A1 (D^-1 rx - scatter(w2 D^-1[idx] t2 / g2)) - ry1
         fold = rxD.at[ub.idx2].add(-w2 * Dinv[ub.idx2] * t2 / g2)
-        t1 = chunked_matvec(A, fold) - ry[:m1]
+        t1 = A @ fold - ry[:m1]
         dy1 = _scaled_cho_solve(fac, t1)
-        aty = chunked_rmatvec(A, dy1)
+        aty = A.T @ dy1
         dy2 = (t2 - w2 * Dinv[ub.idx2] * aty[ub.idx2]) / g2
         dx = (rx - aty - jnp.zeros_like(rx).at[ub.idx2].add(w2 * dy2)) * Dinv
         return jnp.concatenate([dy1, dy2]), dx
     if use_primal_form(m, n, Q is not None):
-        t = chunked_matvec(A, rx / Dc[:, None]) - ry
+        t = A @ (rx / Dc[:, None]) - ry
         dy = _scaled_cho_solve(fac, t)
-        dx = (rx - chunked_rmatvec(A, dy)) / Dc[:, None]
+        dx = (rx - A.T @ dy) / Dc[:, None]
     else:
-        t = rx + chunked_rmatvec(A, ry / Ec[:, None])
+        t = rx + A.T @ (ry / Ec[:, None])
         dx = _scaled_cho_solve(fac, t)
-        dy = (chunked_matvec(A, dx) - ry) / Ec[:, None]
+        dy = (A @ dx - ry) / Ec[:, None]
     return dy, dx
 
 
@@ -338,9 +270,8 @@ def kkt_solve(A, E, D, L, rhs_y, rhs_x, *, Q=None,
         base_mv = col_mv2
         base_mvT = lambda M, v: col_mv2(M.T, v)
     else:
-        from .linalg import chunked_matvec, chunked_rmatvec
-        base_mv = chunked_matvec
-        base_mvT = chunked_rmatvec
+        base_mv = lambda M, v: M @ v
+        base_mvT = lambda M, v: M.T @ v
     if ub is not None:
         m1 = A.shape[0]
         mv = lambda M, v: jnp.concatenate([base_mv(M, v),
@@ -399,7 +330,7 @@ def augmented_qr_solve(A, E, D, rhs_y, rhs_x, Q=None):
     The reference's factorization operates on the augmented K itself
     (ldlt.c:189-200), which is what keeps it accurate when the E/D spread
     reaches 1e13+ near convergence.  This O((m+n)^3) routine is the dense
-    TPU-safe equivalent (TPU XLA has no f64 LU); it is a standalone
+    equivalent, through QR like ops/linalg.qr_solve; it is a standalone
     diagnostic/verification tool — NOT compiled into solver loops, where its
     cost (compile and run) is never justified.
     """

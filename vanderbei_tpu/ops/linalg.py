@@ -1,10 +1,10 @@
-"""Dense linear-algebra helpers portable across TPU/CPU.
+"""Dense square solves through Householder QR.
 
-TPU's XLA implements Cholesky, QR and triangular_solve for f64 but NOT LU
-(`LuDecomposition` is F32/C64-only), so generic square solves here go
-through Householder QR — backward-stable, MXU-friendly, and f64-clean on
-TPU.  This is the framework-wide replacement for anything that would have
-been `jnp.linalg.solve`.
+Generic square solves in this package (the simplex basis-inverse refresh,
+`kkt.augmented_qr_solve`) go through QR rather than `jnp.linalg.solve`'s
+LU.  QR is backward-stable and costs about twice LU's flops.  The GPU
+factors LU at f64 as well, but switching the simplex to it changes its
+pivoting numerics, so that is left to a measured change.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 
 def qr_solve(A, B):
-    """Solve A X = B for square A via QR (TPU-safe at f64).
+    """Solve A X = B for square A via QR.
 
     B may be a vector or a matrix.
     """
@@ -29,103 +29,3 @@ def qr_solve(A, B):
 def inv_qr(A):
     """Dense inverse via QR (used for the simplex basis-inverse refresh)."""
     return qr_solve(A, jnp.eye(A.shape[0], dtype=A.dtype))
-
-
-# Threshold above which f64 products against a matrix go through the
-# column-chunked scan: TPU f64 gemms are emulated via bf16 split passes,
-# and XLA materializes the split stacks of the WHOLE operand as HLO temps
-# (4x bf16 + 8x f32 partials) — a 6144x13824 f64 operand costs ~17 GB of
-# temps, OOMing the 16 GB chip at compile (evaluate/r4/
-# XL_CRASH_ROOTCAUSE.md).  Chunking bounds the temps to one chunk's.
-CHUNKED_MATVEC_MIN_ELEMS = 30_000_000
-_CHUNK = 2048
-
-
-def _chunk_count(dim: int) -> int | None:
-    """Largest chunk <= _CHUNK that divides dim (padded dims are 128/512
-    multiples, so one exists); None if dim itself is small."""
-    if dim <= _CHUNK:
-        return None
-    for c in (_CHUNK, 1024, 512, 256, 128):
-        if dim % c == 0:
-            return c
-    return None
-
-
-def chunked_matvec(A, v):
-    """A @ v with A's columns processed in chunks via lax.scan.
-
-    Semantically identical to A @ v (full f64 accuracy — each chunk is a
-    true f64 gemm, partials accumulate in f64); bounds the f64-emulation
-    split-stack temps to one (m, chunk) slice.  v may be (n,) or (n, k).
-
-    Chunks are read with dynamic_slice INSIDE the scan body: the earlier
-    moveaxis-based stacking materialized a transposed copy of the whole
-    operand as an HLO temp (2.6 GB for PDS-06's head), defeating the
-    memory bound this function exists to provide.
-    """
-    m, n = A.shape
-    c = _chunk_count(n)
-    if c is None or A.size < CHUNKED_MATVEC_MIN_ELEMS:
-        return A @ v
-    nb = n // c
-
-    def step(acc, k):
-        Ak = jax.lax.dynamic_slice(A, (0, k * c), (m, c))
-        vk = jax.lax.dynamic_slice_in_dim(v, k * c, c, axis=0)
-        return acc + Ak @ vk, None
-
-    zero = jnp.zeros((m,) + v.shape[1:], jnp.result_type(A, v))
-    out, _ = jax.lax.scan(step, zero, jnp.arange(nb))
-    return out
-
-
-def chunked_rmatvec(A, v):
-    """A.T @ v with A's rows processed in chunks (see chunked_matvec)."""
-    m, n = A.shape
-    c = _chunk_count(m)
-    if c is None or A.size < CHUNKED_MATVEC_MIN_ELEMS:
-        return A.T @ v
-    mb = m // c
-
-    def step(acc, k):
-        Ak = jax.lax.dynamic_slice(A, (k * c, 0), (c, n))
-        vk = jax.lax.dynamic_slice_in_dim(v, k * c, c, axis=0)
-        return acc + Ak.T @ vk, None
-
-    zero = jnp.zeros((n,) + v.shape[1:], jnp.result_type(A, v))
-    out, _ = jax.lax.scan(step, zero, jnp.arange(mb))
-    return out
-
-
-# Above this operand size the f32 normal-matrix assembly streams column
-# panels through a scan as well: a full-size `A.astype(f32)` temp plus
-# the scaled copy inside the syrk is another ~2x sizeof(A)/2 of HLO
-# temps — PDS-06's 11.2k x 28.7k head OOMed the 16 GB chip through
-# exactly these (r5).  Only the two largest corpus instances cross this
-# threshold, so smaller programs keep their cached executables.
-CHUNKED_SYRK_MIN_ELEMS = 150_000_000
-
-
-def chunked_scaled_syrk_f32(A, s, e):
-    """M = A diag(s) A' + diag(e) in f32, streaming column panels.
-
-    A may be f64: each panel is cast to f32 after slicing, so no
-    full-size f32 copy of A is ever materialized."""
-    m, n = A.shape
-    c = _chunk_count(n)
-    if c is None:
-        Af = A.astype(jnp.float32)
-        return (Af * s.astype(jnp.float32)[None, :]) @ Af.T + jnp.diag(
-            e.astype(jnp.float32))
-    nb = n // c
-
-    def step(acc, k):
-        Ak = jax.lax.dynamic_slice(A, (0, k * c), (m, c)).astype(jnp.float32)
-        sk = jax.lax.dynamic_slice_in_dim(s, k * c, c, axis=0).astype(
-            jnp.float32)
-        return acc + (Ak * sk[None, :]) @ Ak.T, None
-
-    M, _ = jax.lax.scan(step, jnp.zeros((m, m), jnp.float32),
-                        jnp.arange(nb))
-    return M + jnp.diag(e.astype(jnp.float32))

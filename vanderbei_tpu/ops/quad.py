@@ -5,7 +5,7 @@ The reference ships a C++ double-double class activated by -DQuadPrec
 multiply at Quad.c:240-270) that textually rebinds `double` in every
 compilation unit, at ~50x slowdown (Quad.h:43-44).
 
-The TPU-native equivalent is a (hi, lo) pair carried through vectorized
+The vectorized equivalent is a (hi, lo) pair carried through vectorized
 error-free transforms — the same algorithms, but as elementwise VPU ops on
 whole arrays, and usable at BOTH precisions: f64 pairs reproduce QuadPrec
 mode (~32 significant digits), f32 pairs give double-like accuracy on
@@ -144,7 +144,7 @@ def matvec2(A, x) -> jnp.ndarray:
     """Compensated matrix-vector product A @ x: every row evaluated as if
     in 2x working precision, then rounded once (row-wise Dot2).
 
-    This is the TPU-native analogue of the reference's QuadPrec rebinding
+    This is the vectorized analogue of the reference's QuadPrec rebinding
     of its residual kernels (src/Quad/Quad.h:43-44 + smx/dotprod under
     #define double Quad): instead of swapping the scalar type, the
     products' exact error terms ride along (two_prod) and a compensated

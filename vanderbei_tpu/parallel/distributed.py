@@ -7,7 +7,7 @@ A_k = A[:, k-th shard] and the matching D_k slice),
 
     M = E + sum_k A_k D_k^-1 A_k'          (primal form)
 
-is a per-device partial syrk + one psum over ICI — the same pattern as
+is a per-device partial syrk + one psum — the same pattern as
 tensor-parallel attention logits.  The Cholesky factor and the triangular
 solves then run replicated (m x m lives on every device), while all
 A-sized work (the syrk, A'y gathers, Ax products) stays sharded.  This is

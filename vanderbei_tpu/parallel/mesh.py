@@ -1,13 +1,14 @@
 """Device mesh construction.
 
-The reference is single-process/single-thread (SURVEY.md section 2.7); the
-TPU framework's scale-out axes are:
+The reference is single-process/single-thread (SURVEY.md section 2.7); this
+framework's scale-out axes are:
 
 - "batch": data parallelism over LP instances (the netlib sweep — the
   reference's evaluate/ workload run per-problem),
 - "model": tensor parallelism within one large LP — A's column dimension is
   sharded so the normal-equations syrk A D^-1 A' becomes per-shard partial
-  products all-reduced over ICI (GSPMD inserts the psum).
+  products all-reduced across the devices (GSPMD inserts the psum; NCCL
+  carries it over NVLink on a GPU host).
 
 Following the standard recipe: pick a mesh, annotate shardings with
 NamedSharding, jit, and let XLA place the collectives.

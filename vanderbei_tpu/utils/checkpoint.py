@@ -1,7 +1,7 @@
 """Checkpoint / resume.
 
 The reference has no checkpointing (SURVEY.md section 5); its nearest
-artifacts are writelp re-emission and .out files.  In the TPU framework
+artifacts are writelp re-emission and .out files.  Here
 solver state is a flat pytree of arrays, so persistence is a plain npz:
 
 - save_solution / load_solution round-trip a Solution (the .out-equivalent
